@@ -14,14 +14,14 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mcintegration_tpu.platform import apply_env_platform
+from mcintegration.platform import configure_jax
 
-apply_env_platform()
+configure_jax(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
 import jax.numpy as jnp
 
-from mcintegration_tpu import Continuous, integrate
+from mcintegration import Continuous, integrate
 
 CUBA_VEGAS = [  # reference benchmark.jl:101-113 (Cuba vegas @ ~1e6 evals)
     0.66466956, 5.26864144, 0.30780794, 0.87731278, 0.41654127,
@@ -53,19 +53,17 @@ def test2(x, c):
 def scan_flat_cost(neval):
     """Per-step wall time of :mcmc vs integrand count N=1..11.
 
-    The fused Pallas mcmc kernel (ops/pallas_mcmc.py) runs exactly ONE
-    batched integrand evaluation per step regardless of N (scheduled
-    single-integrand steps), so steps/s should stay ~flat — the property
-    SURVEY.md §5 requires (reference evaluates only the current integrand,
-    src/mcmc/montecarlo.jl:138-139).
+    The reference evaluates only the current integrand per step
+    (src/mcmc/montecarlo.jl:138-139), so steps/s should stay ~flat in N —
+    the property SURVEY.md §5 requires.  The XLA scan evaluates all N
+    integrands and selects (solvers/mcmc.py), so its cost grows with N.
     """
     import jax
 
     print("devices:", jax.devices(), flush=True)
     rows = []
     # N>11 cycles the component list with distinct scale factors — the
-    # huge-bundle regime (SURVEY §5: per-step cost ⊥ N; the fused kernel's
-    # two-word sector bitmask serves nd ≤ 62, ops/pallas_mcmc.py)
+    # huge-bundle regime (SURVEY §5: per-step cost ⊥ N)
     for n in (1, 2, 4, 8, 11, 16, 32):
         fi = (lambda idx, x, c, n=n:
               test2(x, c)[idx % 11] * (1.0 + idx / (2.0 * n)))

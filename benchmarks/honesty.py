@@ -1,19 +1,12 @@
-"""Error-bar honesty of the :vegasmc fused chain kernel at production scale.
+"""Error-bar honesty of the :vegasmc chain at production scale.
 
 Over N seeds, compares the empirical seed-to-seed spread of the estimate
 with the mean reported stderr (block-spread error bars, the same statistic
 Result reports).  Honest errors give ratio r ~= 1 +- 1/sqrt(2N) — the
 sampling uncertainty of r itself is printed with each row, because it is
-the dominant effect at small N: the round-2/3 record of "0.76 at 32768
-steps" was a 32-seed estimate (+-0.125) that re-measures at 0.92/0.96
-(+-0.044 each, two independent 256-seed sets on the chip; pooled
-0.94+-0.03).  Long-chain error bars are honest to within ~6%; the
-residual is a weak (~ -2% pairwise, <2 sigma) anti-correlation between
-block estimates, not accumulator bias (the XLA-path control at the same
-shape reads 1.19+-0.13).  The lattice-roll proposal correlates walkers
-within a block, which inflates the TRUE spread at short chains — the
-reported error must track it (documented in BENCHMARKS.md; CI gate:
-tests/test_honesty.py).
+the dominant effect at small N.  The :vegasmc rows run the fused chain
+kernel on a GPU; the :mcmc rows run its XLA scan.  CI gate:
+tests/test_honesty.py.
 
 Run: python benchmarks/honesty.py [nseeds]   (nseeds scales the per-row
 seed count; the default gives +-0.044 resolution at 32768 steps)
@@ -27,18 +20,18 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mcintegration_tpu.platform import apply_env_platform
+from mcintegration.platform import configure_jax
 
-apply_env_platform()
+configure_jax(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mcintegration_tpu.configuration import Configuration
-from mcintegration_tpu.models.variable import Continuous
-from mcintegration_tpu.solvers.engine import Spec
-from mcintegration_tpu.solvers.vegasmc import VegasMCIteration
+from mcintegration.configuration import Configuration
+from mcintegration.models.variable import Continuous
+from mcintegration.solvers.engine import Spec
+from mcintegration.solvers.vegasmc import VegasMCIteration
 
 EXACT = np.pi / 4
 
@@ -52,17 +45,16 @@ def honesty(nsteps: int, nseeds: int, nwalkers: int = 8192, block: int = 8,
     cfg = Configuration(var=Continuous(0.0, 1.0), dof=[[2]], seed=1)
     spec = Spec(cfg)
     if solver == "mcmc":
-        from mcintegration_tpu.solvers.mcmc import MCMCIteration
+        from mcintegration.solvers.mcmc import MCMCIteration
 
         it = MCMCIteration(spec, lambda i, x, c: _pi(x, c), block=block,
                            nevalperblock=nwalkers * nsteps // block,
-                           backend="pallas", nwalkers=nwalkers,
-                           thermal_ratio=0.2)
+                           nwalkers=nwalkers, thermal_ratio=0.2)
     else:
         it = VegasMCIteration(spec, _pi, block=block,
                               nevalperblock=nwalkers * nsteps // block,
-                              backend="pallas", nwalkers=nwalkers)
-    assert it.backend == "pallas", "fused kernel not eligible on this config"
+                              nwalkers=nwalkers)
+        assert it.backend == "pallas", it.backend_reason
     means, errs = [], []
     t0 = time.time()
     for seed in range(nseeds):
@@ -89,13 +81,12 @@ def main():
     if base < 8:
         sys.exit(f"usage: {sys.argv[0]} [nseeds >= 8] (got {base}; the "
                  "spread estimate needs >= 2 seeds per row)")
-    print(f"8192 walkers, :vegasmc Pallas chain kernel, "
+    print(f"8192 walkers, :vegasmc chain kernel, "
           f"2-D pi integrand (exact {EXACT:.6f})")
     print(f"{'steps/walker':>13s} {'nseeds':>6s} {'spread':>10s} "
           f"{'reported':>10s} {'ratio':>12s} {'max|z|':>7s} {'Mevals/s':>9s}")
     # more seeds at longer chains: the ratio's own noise 1/sqrt(2N) is the
-    # dominant effect there (a 32-seed estimate once read 0.76 where the
-    # 512-seed truth is 0.94 +- 0.03)
+    # dominant effect there
     for nsteps, nseeds in ((512, base // 4), (4096, base // 2),
                            (32768, base)):
         h = honesty(nsteps, nseeds)

@@ -19,16 +19,16 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mcintegration_tpu.platform import apply_env_platform
+from mcintegration.platform import configure_jax
 
-apply_env_platform()
+configure_jax(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import math
 
 import numpy as np
 import jax.numpy as jnp
 
-from mcintegration_tpu import Continuous, integrate
+from mcintegration import Continuous, integrate
 
 
 def _erfinv(y: np.ndarray) -> np.ndarray:
@@ -53,7 +53,7 @@ EXACT = np.sqrt(np.pi) * DELTA  # 0.1772454
 def shifted_grid(s: float, nodes: int = 1025) -> np.ndarray:
     """Grid nodes = equal-probability quantiles of the shifted Gaussian
     g(x) = exp(-(x-mu)^2/delta^2) truncated to [0, beta], mu = beta/2 - s.
-    1024 increments (power of two) keep the Pallas chain kernel eligible."""
+    1024 increments, the library's default resolution."""
     mu = BETA / 2 - s
     a = math.erf((0.0 - mu) / DELTA)
     b = math.erf((BETA - mu) / DELTA)
@@ -72,9 +72,9 @@ def run(solver: str, s: float, neval: int):
     if solver == "vegasmc":
         # the normalization-sector robustness claim rests on LONG chains
         # (the reference runs 1e7-1e8 sequential updates): 8192 walkers
-        # (Pallas chain kernel eligible at block=8) running neval/8192
-        # steps each, with the first half of every chain discarded so the
-        # walk can mix into the shifted peak before measuring
+        # running neval/8192 steps each, with the first half of every chain
+        # discarded so the walk can mix into the shifted peak before
+        # measuring
         kw = dict(nwalkers=8192, warmup=0.5, block=8)
         niter = 1
     res = integrate(f, var=var, dof=[[1]], neval=neval, niter=niter,
@@ -83,9 +83,8 @@ def run(solver: str, s: float, neval: int):
 
 
 def main():
-    # default sized for the attached TPU: vegasmc runs 8192 chains of
-    # neval/8192 steps; 8e9 gives ~1e6 steps/chain (mixes through s = 4δ,
-    # measured relaxation ~1.4e-5/step) in ~2 min/cell on one v5e chip
+    # default: vegasmc runs 8192 chains of neval/8192 steps; 8e9 gives
+    # ~1e6 steps/chain, enough to mix through s = 4δ
     neval = int(float(sys.argv[1])) if len(sys.argv) > 1 else 8_000_000_000
     print(f"exact = {EXACT:.5f}   (neval={neval:.0e} per cell)")
     print(f"{'s/delta':>8s} {'vegas (conventional)':>24s} "

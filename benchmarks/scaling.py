@@ -2,10 +2,10 @@
 
 Measures evals/s of the sharded :vegas kernel as the mesh grows, reporting
 scaling efficiency vs the 1-device rate (the BASELINE.md ">=80% scaling
-1 chip -> 1 host -> N hosts" target).  On this box it exercises the real
-shard_map/psum path over virtual CPU devices (set JAX_PLATFORMS=cpu with
---xla_force_host_platform_device_count=N); on a TPU pod the same script
-measures ICI scaling directly.
+1 chip -> 1 host -> N hosts" target).  Over virtual CPU devices (set
+JAX_PLATFORMS=cpu with --xla_force_host_platform_device_count=N) it
+exercises the real shard_map path; on a host with several GPUs the same
+script measures NVLink scaling directly.
 
 Run: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      python benchmarks/scaling.py [neval_per_device]
@@ -17,19 +17,19 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mcintegration_tpu.platform import apply_env_platform
+from mcintegration.platform import configure_jax
 
-apply_env_platform()
+configure_jax(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mcintegration_tpu.configuration import Configuration
-from mcintegration_tpu.models.variable import Continuous
-from mcintegration_tpu.parallel.mesh import make_mesh
-from mcintegration_tpu.solvers.engine import Spec
-from mcintegration_tpu.solvers.vegas import VegasIteration
+from mcintegration.configuration import Configuration
+from mcintegration.models.variable import Continuous
+from mcintegration.parallel.mesh import make_mesh
+from mcintegration.solvers.engine import Spec
+from mcintegration.solvers.vegas import VegasIteration
 
 
 def rate(ndev: int, neval_per_dev: int) -> float:

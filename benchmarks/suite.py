@@ -14,14 +14,14 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mcintegration_tpu.platform import apply_env_platform
+from mcintegration.platform import configure_jax
 
-apply_env_platform()
+configure_jax(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
 import jax.numpy as jnp
 
-from mcintegration_tpu import Continuous, integrate
+from mcintegration import Continuous, integrate
 
 
 def bench(name, integrand, exact, neval, dof, solver, lower=0.0, upper=1.0,

@@ -2,7 +2,7 @@
 
 The reference ships Documenter autodocs built in CI
 (/root/reference/docs/src/lib/*.md, .github/workflows/CI.yml:76-99); this
-is the equivalent for the TPU framework: every public module, class,
+is the equivalent for this framework: every public module, class,
 function, and method is rendered with its live signature and docstring, so
 the committed artifact can never describe an API that does not exist.
 CI regenerates api.md and fails if it differs from the committed copy
@@ -26,37 +26,33 @@ API_MD = os.path.join(REPO, "docs", "api.md")
 # (module, one-line role) in presentation order: user-facing first,
 # internals last.  Only symbols DEFINED in the module are documented.
 MODULES = [
-    ("mcintegration_tpu", "package root — the public API surface"),
-    ("mcintegration_tpu.main", "the integrate() driver and kernel cache"),
-    ("mcintegration_tpu.configuration", "Configuration (MC state)"),
-    ("mcintegration_tpu.statistics", "Result, averaging, report tables"),
-    ("mcintegration_tpu.models.variable",
+    ("mcintegration", "package root — the public API surface"),
+    ("mcintegration.main", "the integrate() driver and kernel cache"),
+    ("mcintegration.configuration", "Configuration (MC state)"),
+    ("mcintegration.statistics", "Result, averaging, report tables"),
+    ("mcintegration.models.variable",
      "variable pools: Continuous / Discrete / FermiK / CompositeVar"),
-    ("mcintegration_tpu.checkpoint", "trained-state save/load"),
-    ("mcintegration_tpu.parallel.mesh",
+    ("mcintegration.checkpoint", "trained-state save/load"),
+    ("mcintegration.parallel.mesh",
      "device meshes, distributed init, collectives"),
-    ("mcintegration_tpu.common", "constants and the onehot measure helper"),
-    ("mcintegration_tpu.debug", "debug=True probes and finite guards"),
-    ("mcintegration_tpu.platform", "backend/platform selection helpers"),
-    ("mcintegration_tpu.solvers.engine",
+    ("mcintegration.common", "constants and the onehot measure helper"),
+    ("mcintegration.debug", "debug=True probes and finite guards"),
+    ("mcintegration.platform", "entry-point set-up: compile cache"),
+    ("mcintegration.solvers.engine",
      "shared solver engine: Spec, pools, padding algebra"),
-    ("mcintegration_tpu.solvers.vegas", ":vegas iteration kernel"),
-    ("mcintegration_tpu.solvers.vegasplus", ":vegasplus iteration kernel"),
-    ("mcintegration_tpu.solvers.vegasmc", ":vegasmc iteration kernel"),
-    ("mcintegration_tpu.solvers.mcmc", ":mcmc iteration kernel"),
-    ("mcintegration_tpu.ops.grid",
+    ("mcintegration.solvers.vegas", ":vegas iteration kernel"),
+    ("mcintegration.solvers.vegasplus", ":vegasplus iteration kernel"),
+    ("mcintegration.solvers.vegasmc", ":vegasmc iteration kernel"),
+    ("mcintegration.solvers.mcmc", ":mcmc iteration kernel"),
+    ("mcintegration.ops.grid",
      "adaptive Vegas-map math: smooth / rescale / train"),
-    ("mcintegration_tpu.ops.lookup", "two-level table lookup primitives"),
-    ("mcintegration_tpu.ops.ksum", "Kahan-compensated accumulators"),
-    ("mcintegration_tpu.ops.realify",
-     "complex -> (re, im) pair program transform"),
-    ("mcintegration_tpu.ops.pallas_vegas", "fused :vegas TPU kernel"),
-    ("mcintegration_tpu.ops.pallas_vplus", "fused :vegasplus TPU kernel"),
-    ("mcintegration_tpu.ops.pallas_chain", "fused :vegasmc chain kernel"),
-    ("mcintegration_tpu.ops.pallas_mcmc", "fused :mcmc scheduled kernel"),
-    ("mcintegration_tpu.utils.stopwatch", "StopWatch periodic reporting"),
-    ("mcintegration_tpu.utils.progress", "progress bar"),
-    ("mcintegration_tpu.utils.color", "ANSI color helpers"),
+    ("mcintegration.ops.lookup", "two-level table lookup primitives"),
+    ("mcintegration.ops.ksum", "Kahan-compensated accumulators"),
+    ("mcintegration.ops.pallas_vegas", "fused :vegas Triton kernel"),
+    ("mcintegration.ops.pallas_chain", "fused :vegasmc Triton kernel"),
+    ("mcintegration.utils.stopwatch", "StopWatch periodic reporting"),
+    ("mcintegration.utils.progress", "progress bar"),
+    ("mcintegration.utils.color", "ANSI color helpers"),
 ]
 
 

@@ -13,14 +13,14 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mcintegration_tpu.platform import apply_env_platform
+from mcintegration.platform import configure_jax
 
-apply_env_platform()
+configure_jax(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
 import jax.numpy as jnp
 
-from mcintegration_tpu import Continuous, Discrete, integrate, report
+from mcintegration import Continuous, Discrete, integrate, report
 
 QSIZE = 8
 RS, BETA, SPIN, DIM, ME = 1.0, 25.0, 2, 3, 0.5

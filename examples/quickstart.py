@@ -11,14 +11,14 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mcintegration_tpu.platform import apply_env_platform
+from mcintegration.platform import configure_jax
 
-apply_env_platform()
+configure_jax(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
 import jax.numpy as jnp
 
-from mcintegration_tpu import (
+from mcintegration import (
     CompositeVar,
     Configuration,
     Continuous,

@@ -2,26 +2,24 @@
 
 Mirrors the reference's "fake cluster" testing trick (SURVEY.md §4): the
 reference self-spawns `mpiexec -n 2`; here XLA hosts 8 virtual CPU devices so
-every shard_map/psum codepath is exercised without TPU hardware.
+every shard_map/collective codepath is exercised without accelerators.  The
+tests always run on the CPU, even where a GPU is attached; the GPU is
+exercised by `chip_smoke.py`.
 """
 
 import os
 
-# Force the virtual CPU mesh even when a real TPU is attached: the test
-# battery validates sharding/collective semantics, not TPU codegen.  Set
-# MCI_TEST_TPU=1 to run the battery on the attached accelerator instead.
-if not os.environ.get("MCI_TEST_TPU"):
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    os.environ["XLA_FLAGS"] = (
-        os.environ.get("XLA_FLAGS", "")
-        + " --xla_force_host_platform_device_count=8"
-    )
-    # a pytest plugin may import jax before this conftest runs, baking the
-    # env vars in; config.update still works until backends initialize
-    import jax
+os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ["XLA_FLAGS"] = (
+    os.environ.get("XLA_FLAGS", "")
+    + " --xla_force_host_platform_device_count=8"
+)
+# a pytest plugin may import jax before this conftest runs, baking the env
+# vars in; config.update still works until backends initialize
+import jax
 
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_num_cpu_devices", 8)
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_num_cpu_devices", 8)
 
 import numpy as np
 import pytest

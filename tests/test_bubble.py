@@ -11,7 +11,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mcintegration_tpu import Configuration, Continuous, Discrete, integrate
+from mcintegration import Configuration, Continuous, Discrete, integrate
 
 QSIZE = 4
 RS = 1.0
@@ -68,13 +68,13 @@ def integrand(vars, c):
 
 
 def measure(vars, relw, c):
-    from mcintegration_tpu import onehot
+    from mcintegration import onehot
     ext = vars[-1]
     return [onehot(ext[0], 1, QSIZE, relw[0].dtype) * relw[0]]
 
 
 def measure_i(idx, vars, relw, c):
-    from mcintegration_tpu import onehot
+    from mcintegration import onehot
     ext = vars[-1]
     return [onehot(ext[0], 1, QSIZE, relw.dtype) * relw]
 

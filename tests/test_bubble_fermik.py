@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mcintegration_tpu import Continuous, Discrete, FermiK, integrate
+from mcintegration import Continuous, Discrete, FermiK, integrate
 
 QSIZE = 4
 RS, BETA, SPIN, DIM, ME = 1.0, 25.0, 2, 3, 0.5
@@ -72,7 +72,7 @@ def test_fermik_raises_in_vegas_solvers():
 
 def test_tiny_is_positive():
     """TINY must be a positive float64 floor (reference MCIntegration.jl:11)."""
-    from mcintegration_tpu.common import TINY
+    from mcintegration.common import TINY
     assert TINY > 0.0
     assert np.isfinite(TINY)
     assert TINY < 1e-200  # far below any physical probability

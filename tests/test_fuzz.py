@@ -1,4 +1,4 @@
-"""Property-based spec fuzz: Pallas/XLA parity over random problem shapes.
+"""Property-based spec fuzz: kernel/XLA parity over random problem shapes.
 
 Round-5 response to a pattern of boundary bugs (the wide-Discrete clamp
 fix, the vegasplus cache-hit fix): instead of hand-picking shapes, sample
@@ -24,11 +24,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mcintegration_tpu.configuration import Configuration
-from mcintegration_tpu.models.variable import CompositeVar, Continuous, Discrete
-from mcintegration_tpu.solvers.engine import Spec
-from mcintegration_tpu.solvers.mcmc import MCMCIteration
-from mcintegration_tpu.solvers.vegasmc import VegasMCIteration
+from mcintegration.configuration import Configuration
+from mcintegration.models.variable import CompositeVar, Continuous, Discrete
+from mcintegration.solvers.engine import Spec
+from mcintegration.solvers.mcmc import MCMCIteration
+from mcintegration.solvers.vegasmc import VegasMCIteration
 
 FUZZ_N = int(os.environ.get("MCI_FUZZ_N", "4"))
 FUZZ_SEED = int(os.environ.get("MCI_FUZZ_SEED", "20260821"))
@@ -72,6 +72,34 @@ def sample_spec(rng):
     cplx = bool(rng.integers(0, 2))
     mf = int(rng.choice([1, 1, 2]))
     return tuple(pools), dof, cplx, mf
+
+
+def sample_kernel_spec(rng):
+    """Random spec inside the fused kernels' scope: Continuous pools only
+    (plain, offset, or a Continuous composite), one shared ninc (the :vegas
+    kernel stratifies all pools alike), real weights, measurefreq."""
+    ninc = int(rng.choice([32, 100, 128, 1000, 1024]))
+    pools = []
+    for _ in range(int(rng.integers(1, 3))):
+        lo = float(rng.uniform(-1.0, 0.5))
+        if rng.integers(0, 3) == 0:
+            pools.append(CompositeVar(
+                Continuous(lo, lo + 1.0, ninc=ninc),
+                Continuous(0.0, 2.0, ninc=ninc)))
+        else:
+            pools.append(Continuous(lo, lo + float(rng.uniform(0.5, 2.0)),
+                                    ninc=ninc,
+                                    offset=int(rng.integers(0, 2))))
+    n_int = int(rng.integers(1, 4))
+    maxdof = [int(rng.integers(1, 3)) for _ in pools]
+    dof = [[int(rng.integers(0 if n_int > 1 else 1, m + 1))
+            for m in maxdof] for _ in range(n_int)]
+    for g, m in enumerate(maxdof):
+        dof[rng.integers(0, n_int)][g] = m
+    for row in dof:
+        if all(d == 0 for d in row):
+            row[int(rng.integers(0, len(row)))] = 1
+    return tuple(pools), dof, False, int(rng.choice([1, 1, 2]))
 
 
 def make_integrand(spec, cplx, mcmc, salt):
@@ -197,37 +225,55 @@ def test_fuzz_mcmc(case_idx):
     _run_case(Iteration, case_idx, mcmc=True)
 
 
+def _kernel_case(case_idx):
+    rng = np.random.default_rng(FUZZ_SEED + 1000 * case_idx + 29)
+    pools, dof, cplx, mf = sample_kernel_spec(rng)
+    spec = Spec(Configuration(var=pools, dof=dof,
+                              seed=int(rng.integers(1, 2**31))))
+    return spec, make_integrand(spec, cplx, False, case_idx), mf
+
+
+@pytest.mark.parametrize("case_idx", range(FUZZ_N))
+def test_fuzz_kernels(case_idx):
+    """Random specs inside the kernels' scope: both kernels engage (the
+    :vegas one unless measurefreq > 1), run deterministically, and agree
+    with the XLA path."""
+    from mcintegration.solvers.vegas import VegasIteration
+
+    spec, f, mf = _kernel_case(case_idx)
+    for cls, kw in ((VegasMCIteration, {"nwalkers": 4096}),
+                    (VegasIteration, {})):
+        results = {}
+        for be in ("xla", "pallas"):
+            its = [cls(spec, f, backend=be, block=4, nevalperblock=2 ** 13,
+                       measurefreq=mf, **kw) for _ in range(2)]
+            sts = [it.run(spec.device_params(), jax.random.key(11))
+                   for it in its]
+            np.testing.assert_array_equal(
+                np.asarray(sts[0]["obs_blocks"]),
+                np.asarray(sts[1]["obs_blocks"]))
+            results[be] = (its[0].backend,
+                           *_estimate(sts[0], spec.N, False))
+        want = "xla" if cls is VegasIteration and mf > 1 else "pallas"
+        assert results["pallas"][0] == want, (cls.__name__, mf)
+        _parity(*results["pallas"][1:], *results["xla"][1:])
+
+
 def test_fuzz_engages_fused_path_somewhere():
-    """The sampled CI subset must exercise the fused kernel at least once
-    per solver family — otherwise the parity half of the fuzz is vacuous."""
-    hits = {"chain": 0, "mcmc": 0}
+    """The sampled CI subsets must exercise each fused kernel at least
+    once — otherwise the parity half of the fuzz is vacuous."""
+    from mcintegration.solvers.vegas import VegasIteration
+
+    hits = {"chain": 0, "vegas": 0}
     for case_idx in range(FUZZ_N):
-        rng = np.random.default_rng(FUZZ_SEED + 1000 * case_idx)
-        pools, dof, cplx, mf = sample_spec(rng)
-        # cheap reconstruction of the routing decision
-        cfg = Configuration(var=pools, dof=dof, seed=3,
-                            **({"type": complex} if cplx else {}))
-        spec = Spec(cfg)
-        f = make_integrand(spec, cplx, False, case_idx)
-        it = VegasMCIteration(spec, f, backend="pallas", block=4,
-                              nevalperblock=2 ** 13, nwalkers=4096,
-                              measurefreq=mf,
-                              weight_dtype=jnp.complex64 if cplx
-                              else jnp.float32)
-        hits["chain"] += it.backend == "pallas"
-        rng = np.random.default_rng(FUZZ_SEED + 1000 * case_idx + 1)
-        pools, dof, cplx, mf = sample_spec(rng)
-        cfg = Configuration(var=pools, dof=dof, seed=3,
-                            **({"type": complex} if cplx else {}))
-        spec = Spec(cfg)
-        fi = make_integrand(spec, cplx, True, case_idx)
-        it = MCMCIteration(spec, fi, backend="pallas", block=4,
-                           nevalperblock=2 ** 13, nwalkers=4096,
-                           measurefreq=mf, thermal_ratio=0.3,
-                           weight_dtype=jnp.complex64 if cplx
-                           else jnp.float32)
-        hits["mcmc"] += it.backend == "pallas"
-    assert hits["chain"] > 0 and hits["mcmc"] > 0, hits
+        spec, f, mf = _kernel_case(case_idx)
+        hits["chain"] += VegasMCIteration(
+            spec, f, backend="pallas", block=4, nevalperblock=2 ** 13,
+            nwalkers=4096, measurefreq=mf).backend == "pallas"
+        hits["vegas"] += VegasIteration(
+            spec, f, backend="pallas", block=4, nevalperblock=2 ** 13,
+            measurefreq=mf).backend == "pallas"
+    assert hits["chain"] > 0 and hits["vegas"] > 0, hits
 
 
 @pytest.mark.parametrize("case_idx", range(FUZZ_N))
@@ -236,7 +282,7 @@ def test_fuzz_vegas(case_idx):
     routing consistency, determinism, and fused/XLA parity (the fused
     kernel engages only for all-Continuous specs with a stratification
     plan; everything else must agree XLA-vs-XLA deterministically)."""
-    from mcintegration_tpu.solvers.vegas import VegasIteration
+    from mcintegration.solvers.vegas import VegasIteration
 
     rng = np.random.default_rng(FUZZ_SEED + 1000 * case_idx + 7)
     pools, dof, cplx, mf = sample_spec(rng)
@@ -271,7 +317,7 @@ def test_fuzz_vegasplus(case_idx):
     declares unsupported (pure-Discrete, >10 stratified dims) are skipped
     via its own NotImplementedError; everything else must route
     consistently, run deterministically, and agree across backends."""
-    from mcintegration_tpu.solvers.vegasplus import VegasPlusIteration
+    from mcintegration.solvers.vegasplus import VegasPlusIteration
 
     rng = np.random.default_rng(FUZZ_SEED + 1000 * case_idx + 13)
     pools, dof, cplx, mf = sample_spec(rng)

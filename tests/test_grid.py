@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mcintegration_tpu.ops.grid import (
+from mcintegration.ops.grid import (
     build_cdf,
     locate,
     rescale,

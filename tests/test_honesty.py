@@ -1,20 +1,15 @@
 """Error-bar honesty regression gates for the fused chain kernel.
 
-The :vegasmc Pallas chain kernel advances 128-lane walker lattices with a
-cyclic lattice-roll proposal (ops/pallas_chain.py); within a block this
-correlates walkers, which inflates the TRUE sampling spread at short
-chains.  The error bars are computed from the block spread, so they track
-that inflation — these tests turn "the reported error is honest" from a
-BENCHMARKS.md claim into a regression gate:
+The error bars of the :vegasmc chain kernel (ops/pallas_chain.py) are
+computed from the block spread; these tests turn "the reported error is
+honest" into a regression gate:
 
 - `test_chain_error_bar_honesty`: over 16 seeds, the empirical spread of
   the estimate matches the mean reported stderr (ratio gate ~±40%; the
-  fixed seeds make the test deterministic).  Production-length (2^15
-  steps/walker) verification runs on real TPU hardware via
-  `benchmarks/honesty.py` and is recorded in BENCHMARKS.md.
+  fixed seeds make the test deterministic).  Production-length runs on
+  the GPU go through `benchmarks/honesty.py`.
 - `test_chain_short_chain_inflation`: at short chains the kernel's
-  reported error may exceed the XLA path's (lattice-roll correlation,
-  documented ~1.5x) but must stay under 2.5x — and must remain honest.
+  reported error must stay within 2.5x of the XLA path's — and honest.
 
 Reference behavior being matched: block-spread error bars,
 /root/reference/src/vegas_mc/montecarlo.jl:233-241 + src/statistics.jl.
@@ -25,10 +20,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mcintegration_tpu.configuration import Configuration
-from mcintegration_tpu.models.variable import Continuous
-from mcintegration_tpu.solvers.engine import Spec
-from mcintegration_tpu.solvers.vegasmc import VegasMCIteration
+from mcintegration.configuration import Configuration
+from mcintegration.models.variable import Continuous
+from mcintegration.solvers.engine import Spec
+from mcintegration.solvers.vegasmc import VegasMCIteration
 
 EXACT = np.pi / 4
 
@@ -49,8 +44,8 @@ def test_chain_error_bar_honesty():
     """Empirical seed-to-seed spread ≈ mean reported stderr (chain kernel)."""
     cfg = Configuration(var=Continuous(0.0, 1.0), dof=[[2]], seed=1)
     spec = Spec(cfg)
-    # block=4, S=8 -> 4096 walkers, 512 steps/walker: the longest setting
-    # that keeps 16 interpret-mode runs within the CI budget
+    # 4096 walkers, 512 steps/walker: keeps 16 interpret-mode runs
+    # within the CI budget
     it = VegasMCIteration(spec, _pi, block=4, nevalperblock=2 ** 19,
                           backend="pallas", nwalkers=4096)
     assert it.backend == "pallas"
@@ -69,11 +64,6 @@ def test_chain_error_bar_honesty():
     # honest errors r concentrates near 1 with sd ~0.2; the gate catches a
     # systematic 1.5x+ under- or over-estimate while staying deterministic
     # (fixed seeds).
-    # The round-3 verdict's "0.76 at 32768 steps" re-measures at 0.94+-0.03
-    # (two independent 256-seed sets on-chip, benchmarks/honesty.py): the
-    # low reading was 32-seed estimator noise, not a kernel defect.  The
-    # deterministic value of r on this fixed-seed CPU path is 1.03, so the
-    # lower gate tightens 0.55 -> 0.75 per the round-3 ask.
     r = np.sqrt(means.var(ddof=1) / np.mean(errs ** 2))
     assert 0.75 < r < 1.6, (
         f"reported error bars dishonest: spread/reported = {r:.2f} "
@@ -96,5 +86,5 @@ def test_chain_short_chain_inflation():
     mp, ep = res["pallas"]
     _, ex = res["xla"]
     assert abs(mp - EXACT) < 6 * ep, (mp, ep)
-    # documented lattice-correlation inflation stays bounded
+    # short-chain inflation stays bounded
     assert ep < 2.5 * ex, f"short-chain inflation {ep / ex:.2f}x exceeds 2.5x"

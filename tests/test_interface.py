@@ -5,7 +5,7 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from mcintegration_tpu import Continuous, integrate
+from mcintegration import Continuous, integrate
 
 
 def test_unknown_kwargs_swallowed():
@@ -45,7 +45,7 @@ def test_full_config_snapshots_and_midhistory_warm_start():
     """Result.iterations carries full deep-copied configs (reference
     src/statistics.jl:16-23): trained grids evolve across snapshots, and
     any mid-history snapshot warm-starts a new integrate() call."""
-    from mcintegration_tpu.configuration import Configuration
+    from mcintegration.configuration import Configuration
 
     def f(x, c):
         return -jnp.log(jnp.maximum(x[0], 1e-30)) \
@@ -98,7 +98,7 @@ def test_wall_clock_timer_resplit():
     so `print`-second report intervals are honored regardless of
     iteration length (reference: in-loop StopWatch poll every 1000 steps,
     src/utility/stopwatch.jl:11-29)."""
-    from mcintegration_tpu.utils import StopWatch
+    from mcintegration.utils import StopWatch
 
     common = dict(neval=2 ** 21, niter=3, block=4,
                   var=Continuous(0.0, 1.0), dof=[[1]], solver="vegasmc",
@@ -138,9 +138,9 @@ def test_kernel_cache_reuse_and_isolation():
     compiles once per method signature per session."""
     import numpy as np
     import jax.numpy as jnp
-    from mcintegration_tpu import Continuous, integrate
-    from mcintegration_tpu.main import _KERNEL_CACHE, _cache_key
-    from mcintegration_tpu.configuration import Configuration
+    from mcintegration import Continuous, integrate
+    from mcintegration.main import _KERNEL_CACHE, _cache_key
+    from mcintegration.configuration import Configuration
 
     f = lambda x, c: jnp.where(x[0] ** 2 + x[1] ** 2 < 1.0, 1.0, 0.0)
 
@@ -185,7 +185,7 @@ def test_cache_closure_mutation_not_stale():
     """A lambda reading a mutated closure cell must NOT silently reuse the
     stale compiled kernel (jit-style bake-in, made safe: the cache key
     folds a content hash of captured state — main._callable_sig)."""
-    from mcintegration_tpu import integrate
+    from mcintegration import integrate
 
     scale = [1.0]
 
@@ -218,7 +218,7 @@ def test_cache_closure_mutation_not_stale():
         "stale kernel reused after callable attribute mutation"
 
     # unhashable captured state refuses to cache rather than guessing
-    from mcintegration_tpu.main import _callable_sig
+    from mcintegration.main import _callable_sig
 
     class Opaque:
         __slots__ = ("x",)
@@ -226,8 +226,8 @@ def test_cache_closure_mutation_not_stale():
     assert _callable_sig(h) is None
 
     # cache=False escape hatch + clear_kernel_cache drains entries
-    from mcintegration_tpu import clear_kernel_cache
-    from mcintegration_tpu.main import _KERNEL_CACHE
+    from mcintegration import clear_kernel_cache
+    from mcintegration.main import _KERNEL_CACHE
     n0 = len(_KERNEL_CACHE)
     integrate(make(3.0), var=Continuous(0.0, 1.0), dof=[[1]], neval=4096,
               niter=2, solver="vegas", verbose=-2, seed=11, cache=False)
@@ -239,7 +239,7 @@ def test_cache_closure_mutation_not_stale():
 def test_result_backend_surfaced():
     """Result.backend records the compute path; fallbacks carry a reason
     (round-5: a user must be able to tell which path ran and why)."""
-    from mcintegration_tpu import integrate
+    from mcintegration import integrate
 
     # on the CPU test mesh, auto routes to XLA with an explanatory reason
     res = integrate(lambda x, c: x[0], var=Continuous(0.0, 1.0), dof=[[1]],
@@ -247,8 +247,7 @@ def test_result_backend_surfaced():
     assert res.backend == "xla"
     assert res.backend_reason  # a human-readable explanation is recorded
 
-    # real custom measures run in-kernel since round 5; a measure that
-    # fails the batched-equivalence probe reports a measure reason
+    # custom measures run on the XLA path, with a measure reason
     def ms_bad(vars, relw, c):
         return [jnp.zeros(()) + jnp.sum(relw[0])]   # couples samples
 
@@ -265,50 +264,42 @@ def test_result_backend_surfaced():
     assert res3.backend == "pallas" and res3.backend_reason == ""
 
     # derived Result(res, ignore) keeps the provenance
-    from mcintegration_tpu import Result
+    from mcintegration import Result
     assert Result(res3, 1).backend == "pallas"
 
 
-def test_mcmc_routing_boundary():
-    """Pin the fused/XLA routing boundary of the :mcmc scheduled kernel
-    (steps_min ∝ N heuristic, solvers/mcmc.py): at N=4 a 5e6-eval budget
-    routes to XLA with the steps-budget reason, a 3e7 budget routes fused,
-    and explicit nwalkers= overrides the heuristic.  Measured cliff this
-    guards: 780 -> 86 M steps/s at N=16, neval 3e8 -> 1e8 (round-4
-    verdict)."""
-    import jax.numpy as jnp
-    from mcintegration_tpu.configuration import Configuration
-    from mcintegration_tpu.solvers.engine import Spec
-    from mcintegration_tpu.solvers.mcmc import MCMCIteration
+def test_kernel_routing_reasons():
+    """Which path each solver takes, and the reason it records: the fused
+    kernels run natively only on a CUDA GPU; on the CPU they run only when
+    forced (interpret mode); :mcmc and :vegasplus have no kernel."""
+    from mcintegration.configuration import Configuration
+    from mcintegration.solvers.engine import Spec
+    from mcintegration.solvers.mcmc import MCMCIteration
+    from mcintegration.solvers.vegas import VegasIteration
+    from mcintegration.solvers.vegasmc import VegasMCIteration
+    from mcintegration.solvers.vegasplus import VegasPlusIteration
 
-    N = 4
+    def spec():
+        return Spec(Configuration(var=Continuous(0.0, 1.0), dof=[[2]],
+                                  seed=3))
 
-    def f(idx, x, c):
-        return x[0] * 0.0 + 1.0 + idx
+    f = lambda x, c: x[0] * x[1]
+    for cls in (VegasIteration, VegasMCIteration):
+        auto = cls(spec(), f, block=4, nevalperblock=2 ** 12)
+        assert auto.backend == "xla" and "no GPU" in auto.backend_reason
+        forced = cls(spec(), f, block=4, nevalperblock=2 ** 12,
+                     backend="pallas")
+        assert forced.backend == "pallas" and forced.backend_reason == ""
+        asked = cls(spec(), f, block=4, nevalperblock=2 ** 12,
+                    backend="xla")
+        assert asked.backend_reason == "backend='xla' requested"
+    it = MCMCIteration(spec(), lambda i, x, c: x[0], block=4,
+                       nevalperblock=2 ** 12, backend="pallas")
+    assert it.backend == "xla" and "no fused kernel" in it.backend_reason
+    it = VegasPlusIteration(spec(), f, block=4, nevalperblock=2 ** 12,
+                            backend="pallas")
+    assert it.backend == "xla" and "no fused kernel" in it.backend_reason
+    # no kernel asked for, none missed: no reason to print
+    it = VegasPlusIteration(spec(), f, block=4, nevalperblock=2 ** 12)
+    assert it.backend_reason == ""
 
-    def build(neval, **kw):
-        cfg = Configuration(var=Continuous(0.0, 1.0), dof=[[1]] * N, seed=3)
-        spec = Spec(cfg, dtype=jnp.float32)
-        return MCMCIteration(spec, f, block=16, nevalperblock=neval // 16,
-                             mesh=None, backend="pallas",
-                             obs_proto=cfg.observable, **kw)
-
-    # below the boundary: budget funds < steps_min per walker tile
-    low = build(5_000_000)
-    assert low.backend == "xla", low.backend
-    assert "steps" in low.backend_reason and "nwalkers" in low.backend_reason
-
-    # mid: the wide 16x128 tile cannot be funded but the budget-aware
-    # selection (round 5) falls to the half-width 8x128 tile instead of
-    # XLA — measured 87 -> 641 M steps/s at the N=16@1e8 cliff
-    mid = build(15_000_000)
-    assert mid.backend == "pallas", mid.backend_reason
-    assert mid.nwalkers == 16 * 8 * 128, mid.nwalkers
-
-    # above: fused kernel selected (construction only — no interpret run)
-    high = build(30_000_000)
-    assert high.backend == "pallas", high.backend_reason
-
-    # explicit nwalkers overrides the heuristic on the same low budget
-    forced = build(5_000_000, nwalkers=20000)
-    assert forced.backend == "pallas", forced.backend_reason

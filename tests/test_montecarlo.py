@@ -8,7 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mcintegration_tpu import (
+from mcintegration import (
     CompositeVar,
     Configuration,
     Continuous,
@@ -267,7 +267,7 @@ def test_mcmc_reweight_goal():
 
 
 def test_report_smoke(capsys):
-    from mcintegration_tpu import report
+    from mcintegration import report
     res = sphere1(10_000, "vegas")
     report(res)
     out = capsys.readouterr().out

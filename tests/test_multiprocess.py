@@ -28,8 +28,8 @@ import pytest
 COMMON = r"""
 import numpy as np
 import jax.numpy as jnp
-from mcintegration_tpu import Continuous, integrate
-from mcintegration_tpu.parallel.mesh import make_mesh
+from mcintegration import Continuous, integrate
+from mcintegration.parallel.mesh import make_mesh
 
 
 def run_vegas(mesh):
@@ -48,9 +48,9 @@ def run_vegasmc(mesh):
 
 
 def run_vegas_fused(mesh):
-    # the fused Pallas :vegas kernel (interpret mode on CPU), sharded over
-    # the SAME global mesh: shard_map + psum of a Mosaic kernel's outputs
-    # crossing a real process boundary
+    # the fused Triton :vegas kernel (interpret mode on CPU), sharded over
+    # the SAME global mesh: shard_map of a Pallas kernel whose per-block
+    # outputs cross a real process boundary
     return integrate(
         lambda x, c: jnp.where(x[0]**2 + x[1]**2 < 1.0, 1.0, 0.0),
         var=Continuous(0.0, 1.0), dof=[[2]], neval=2e4, niter=1,
@@ -73,9 +73,6 @@ def emit(tag, res):
 
 WORKER = r"""
 import os, sys
-# the TPU-semantics pallas interpreter deadlocks across processes (host
-# callbacks); the generic interpreter is valid for the vegas kernel
-os.environ["MCI_PALLAS_GENERIC_INTERPRET"] = "1"
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 2)
@@ -100,7 +97,6 @@ emit("VEGASF", run_vegas_fused(mesh))
 
 SINGLE = r"""
 import os, sys
-os.environ["MCI_PALLAS_GENERIC_INTERPRET"] = "1"
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 4)

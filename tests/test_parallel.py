@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mcintegration_tpu import Continuous, integrate, make_mesh
-from mcintegration_tpu.parallel.mesh import mesh_size
+from mcintegration import Continuous, integrate, make_mesh
+from mcintegration.parallel.mesh import mesh_size
 from conftest import check
 
 F = lambda x, c: jnp.where(x[0] ** 2 + x[1] ** 2 < 1.0, 1.0, 0.0)
@@ -60,7 +60,7 @@ def test_different_seeds_differ():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from mcintegration_tpu import Configuration, load_state, save_state
+    from mcintegration import Configuration, load_state, save_state
 
     res = integrate(lambda x, c: jnp.log(x[0]) / jnp.sqrt(x[0]),
                     var=Continuous(0.0, 1.0), dof=[[1]], neval=5e4, niter=5,

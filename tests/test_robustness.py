@@ -9,13 +9,11 @@ underweights.  The published table: conventional importance sampling
 collapses at s = 4δ (0.0204(64) vs exact 0.1772) while the normalization
 sector survives (0.176(15)).
 
-The full 4δ demonstration needs ~1e6 steps/walker and runs on real TPU
-hardware (`benchmarks/sampling_stress.py`; measured 0.1768(9) at z=-0.5 —
-see BENCHMARKS.md).  This CI gate runs the same machinery in the reachable
-s = 2δ regime (chain mixing rate ~1.2e-4/step measured on-chip), where the
-old many-short-walkers default produced 0.1157(6) — a 35% collapse — and
-the long-chain mode with a 50% burn-in discard (`warmup=0.5`) must recover
-the exact value.
+The full 4δ demonstration needs ~1e6 steps/walker and runs on the GPU
+(`benchmarks/sampling_stress.py`).  This CI gate runs the same machinery in
+the reachable s = 2δ regime, where the many-short-walkers default
+collapses by ~35% and the long-chain mode with a 50% burn-in discard
+(`warmup=0.5`) must recover the exact value.
 """
 
 import math
@@ -24,7 +22,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mcintegration_tpu import Continuous, integrate
+from mcintegration import Continuous, integrate
 
 BETA, DELTA = 100.0, 0.1
 EXACT = math.sqrt(math.pi) * DELTA  # 0.1772454

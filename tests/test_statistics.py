@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from mcintegration_tpu.statistics import Result, average, mean_std, sig_digits, tostring
+from mcintegration.statistics import Result, average, mean_std, sig_digits, tostring
 
 
 class _FakeConfig:
@@ -103,9 +103,9 @@ def test_tostring_sig_digits():
 def test_reweight_converges_to_goal():
     """Reweighting drives visited ratios toward reweight_goal over
     iterations (reference test/mpi_test.jl:148-169)."""
-    from mcintegration_tpu.configuration import Configuration
-    from mcintegration_tpu.main import do_reweight
-    from mcintegration_tpu.models.variable import Continuous
+    from mcintegration.configuration import Configuration
+    from mcintegration.main import do_reweight
+    from mcintegration.models.variable import Continuous
 
     cfg = Configuration(var=Continuous(0.0, 1.0), dof=[[1], [1]])
     goal = np.array([2.0, 1.0, 1.0])

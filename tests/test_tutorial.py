@@ -6,9 +6,9 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-import mcintegration_tpu as mci
-from mcintegration_tpu import Configuration, Continuous, Discrete
-from mcintegration_tpu.parallel import make_mesh
+import mcintegration as mci
+from mcintegration import Configuration, Continuous, Discrete
+from mcintegration.parallel import make_mesh
 
 
 def _blocks():

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mcintegration_tpu import CompositeVar, Configuration, Continuous, Discrete, FermiK
-from mcintegration_tpu.solvers.engine import Spec
+from mcintegration import CompositeVar, Configuration, Continuous, Discrete, FermiK
+from mcintegration.solvers.engine import Spec
 
 
 def test_continuous_ctor():
